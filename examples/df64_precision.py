@@ -1,10 +1,11 @@
-"""Reference accuracy on TPU hardware: the double-float (df64) mode.
+"""Reference accuracy from float32 arithmetic: the double-float (df64) mode.
 
-TPUs have no float64 units; the complex64 production pipeline reaches
-~1e-5 relative accuracy. The df64 layer recomputes the heavy stages in
+For devices without float64 units the complex64 pipeline reaches ~1e-5
+relative accuracy. The df64 layer recomputes the heavy stages in
 float32-PAIR arithmetic (Dekker/Knuth error-free transformations) and
-matches the complex128 CPU results to ~1e-13 — from ops that run
-unmodified on the TPU's VPU.
+matches the complex128 CPU results to ~1e-13 from float32 ops alone. It
+runs on the CPU here; on a GPU use the complex128 drivers (the tier
+refuses GPU backends).
 
 Surfaces demonstrated: continuous spectrum, bound states, and the
 end-to-end inverse (rho -> q).

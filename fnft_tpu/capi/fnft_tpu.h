@@ -3,7 +3,7 @@
  * Drop-in style counterparts of the reference FNFT C library's public
  * drivers (include/fnft_nsev.h:371-376, fnft_kdvv.h:104-109,
  * fnft_nsep.h:263-267, fnft_nsev_inverse.h:275-286), backed by the
- * TPU-native JAX implementation through an embedded CPython interpreter.
+ * JAX implementation through an embedded CPython interpreter.
  *
  * Differences from the reference API, by design:
  *   - every function takes a JSON options string instead of an opts
@@ -22,7 +22,7 @@
  * Environment:
  *   FNFT_TPU_PYTHON    interpreter to embed (default: baked at build)
  *   FNFT_TPU_PKG_ROOT  directory containing the fnft_tpu package
- *   FNFT_TPU_PLATFORM  jax platform override, e.g. "cpu" or "tpu"
+ *   FNFT_TPU_PLATFORM  jax platform override: "cpu" or "gpu"
  *
  * Return codes: 0 success, 1 invalid argument, 2 internal error,
  * 3 embedding/initialization failure. fnft_tpu_last_error() returns a

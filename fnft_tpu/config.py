@@ -1,25 +1,46 @@
-"""Precision / platform configuration.
+"""Precision and compile-cache configuration.
 
 The reference library (fnft_numtypes.h:40-62) fixes FNFT_COMPLEX = double
-complex. On TPU, float64 is emulated and slow, so this rebuild is dtype
-polymorphic instead:
-
-* tests / CPU reference runs: complex128 (enable with :func:`use_x64`),
-* TPU production runs: complex64 (default on TPU).
-
-All kernels infer their working dtype from the input signal's dtype, so a
-caller opts into a precision simply by casting ``q``.
+complex. This rebuild is dtype polymorphic instead: every kernel infers its
+working dtype from the input signal's dtype, so a caller opts into a
+precision simply by casting ``q``. complex128 (enable with :func:`use_x64`)
+is the precision the reference's error bounds are stated for, on the CPU
+and on the GPU alike; complex64 is a separate, lower-accuracy contract.
 """
 
 from __future__ import annotations
 
+import os
+import pathlib
+
 import jax
 import jax.numpy as jnp
+
+_CHECKOUT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def use_x64(enable: bool = True) -> None:
     """Enable float64/complex128 globally (wraps jax.config)."""
     jax.config.update("jax_enable_x64", enable)
+
+
+def compilation_cache_dir() -> str:
+    """Where compiled programs persist: ``$JAX_COMPILATION_CACHE_DIR`` when
+    set, else the fixed ``<checkout>/.jax_cache`` (a fixed path, because
+    the path is part of the cache key)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
+        _CHECKOUT / ".jax_cache")
+
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compile cache at
+    :func:`compilation_cache_dir` and return that directory. With
+    ``JAX_COMPILATION_CACHE_DIR`` set, JAX already reads it and no other
+    directory is set here."""
+    path = compilation_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def default_complex_dtype():

@@ -1,4 +1,4 @@
-"""Public surface of the double-float (reference-accuracy-on-TPU) mode.
+"""Public surface of the double-float (float32-pair) mode.
 
 Convenience namespace re-exporting the float32-pair pipelines:
 
@@ -9,20 +9,34 @@ Convenience namespace re-exporting the float32-pair pipelines:
 >>> q = df64.finvscatter(transfer_matrix, eps_t, kappa)
 >>> q = df64.nsev_inverse(rho, xi_span, d, t_span, kappa=-1)
 
-See docs/performance.md ("Precision") for measured accuracy and cost.
+See docs/performance.md ("Precision") for the tier's accuracy. On a GPU
+backend every entry point raises
+:class:`fnft_tpu.errors.ComplexFreeTierUnavailableError`: use the
+complex128 drivers there.
 """
 
-from fnft_tpu.ops.df64 import poly_specfact_df64 as poly_specfact  # noqa: F401
-from fnft_tpu.ops.df64_inverse import (  # noqa: F401
-    finvscatter_df64 as finvscatter,
-    nsev_inverse_b_of_tau_df64 as nsev_inverse_b_of_tau,
-    nsev_inverse_b_of_xi_df64 as nsev_inverse_b_of_xi,
-    nsev_inverse_df64 as nsev_inverse,
-)
-from fnft_tpu.ops.df64_pipeline import (  # noqa: F401
-    enable_compilation_cache,
-    kdvv_contspec_df64 as kdvv_contspec,
-    nsev_boundstates_df64 as nsev_boundstates,
-    nsev_boundstates_df64_batched as nsev_boundstates_batched,
-    nsev_contspec_df64 as nsev_contspec,
-)
+import functools
+
+from fnft_tpu.errors import require_complex_free_backend
+from fnft_tpu.ops import df64 as _df64
+from fnft_tpu.ops import df64_inverse as _inv
+from fnft_tpu.ops import df64_pipeline as _pipe
+
+
+def _not_on_gpu(fn):
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        require_complex_free_backend(f"fnft_tpu.df64.{fn.__name__}")
+        return fn(*args, **kwargs)
+    return entry
+
+
+poly_specfact = _not_on_gpu(_df64.poly_specfact_df64)
+finvscatter = _not_on_gpu(_inv.finvscatter_df64)
+nsev_inverse_b_of_tau = _not_on_gpu(_inv.nsev_inverse_b_of_tau_df64)
+nsev_inverse_b_of_xi = _not_on_gpu(_inv.nsev_inverse_b_of_xi_df64)
+nsev_inverse = _not_on_gpu(_inv.nsev_inverse_df64)
+kdvv_contspec = _not_on_gpu(_pipe.kdvv_contspec_df64)
+nsev_boundstates = _not_on_gpu(_pipe.nsev_boundstates_df64)
+nsev_boundstates_batched = _not_on_gpu(_pipe.nsev_boundstates_df64_batched)
+nsev_contspec = _not_on_gpu(_pipe.nsev_contspec_df64)

@@ -30,6 +30,28 @@ class NotYetImplementedError(FnftError, NotImplementedError):
     """Mirrors FNFT_EC_NOT_YET_IMPLEMENTED."""
 
 
+class ComplexFreeTierUnavailableError(FnftError, RuntimeError):
+    """The float32-pair (rc/df64) tier was called on a GPU backend.
+
+    The tier stands in for complex128 on devices without complex types or
+    float64. On a GPU the complex128 drivers (:func:`fnft_tpu.nsev` and
+    the others) are the path; the tier's programs did not finish compiling
+    within 300 s on an H100 and its accuracy there is unverified, so it
+    refuses rather than risk a silent wrong answer (ROADMAP D2)."""
+
+
+def require_complex_free_backend(entry: str) -> None:
+    """Raise :class:`ComplexFreeTierUnavailableError` on a GPU backend."""
+    import jax
+
+    if jax.default_backend() == "gpu":
+        raise ComplexFreeTierUnavailableError(
+            f"{entry} is part of the float32-pair tier, which is not "
+            "supported on GPU backends; use the complex128 drivers "
+            "(fnft_tpu.nsev, nsep, kdvv, nsev_inverse) with "
+            "fnft_tpu.use_x64() instead")
+
+
 def check_arg(cond: bool, message: str) -> None:
     if not cond:
         raise InvalidArgumentError(message)

@@ -1,6 +1,6 @@
 """Forward NFT for the Korteweg-de Vries equation, vanishing BCs.
 
-TPU rebuild of fnft_kdvv.c:59-209. KdV maps onto the AKNS system with
+Rebuild of fnft_kdvv.c:59-209. KdV maps onto the AKNS system with
 r = -1 (fnft__kdv_fscatter.c:75-76); the reflection coefficient is read off
 the transfer matrix evaluated on the *negated* xi grid:
 

@@ -1,6 +1,6 @@
 """NSE equation adapter: signal preprocessing and boundary phase factors.
 
-TPU rebuild of fnft__nse_discretization.c (r-potential construction,
+Rebuild of fnft__nse_discretization.c (r-potential construction,
 commutator-free stage resampling, ES4/TES4 derivative slots, phase factors)
 and fnft__nse_fscatter.c / fnft__nse_scatter_matrix.c (thin r-builders).
 

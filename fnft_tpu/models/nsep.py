@@ -1,6 +1,6 @@
 """Forward NFT for the (quasi-)periodic NSE: main and auxiliary spectra.
 
-TPU rebuild of fnft_nsep.c:82-864. The main spectrum consists of the
+Rebuild of fnft_nsep.c:82-864. The main spectrum consists of the
 lambdas where the Floquet discriminant Delta(lam) = trace of the monodromy
 matrix equals +-2 (more generally, the values in ``floquet_range`` scaled
 by 2, which yields spines); the auxiliary spectrum are the roots of the
@@ -303,7 +303,7 @@ def _sr_localize(q_pre, eps_t, d, kappa, box, opts, want_main, want_aux,
 
     # All root solves (every spine value + the aux polynomial) share one
     # batched Aberth dispatch: the reference calls eiscor once per spine
-    # (fnft_nsep.c:556-608); a per-call host round-trip would stall a TPU
+    # (fnft_nsep.c:556-608); a per-call host round-trip would stall a device
     # pipeline, so the per-spine polynomials are stacked instead.
     rhs_vals = np.zeros(0)
     polys = []

@@ -1,6 +1,6 @@
 """Forward NFT for the nonlinear Schroedinger equation, vanishing BCs.
 
-TPU rebuild of fnft_nsev.c. The driver is host-orchestrated Python that
+Rebuild of fnft_nsev.c. The driver is host-orchestrated Python that
 composes jitted kernels (fscatter tree, chirp-Z, Aberth rootfinder, Newton
 scans); array shapes stay static inside every kernel, and dynamic-length
 results (bound states) are compacted once at the API boundary.

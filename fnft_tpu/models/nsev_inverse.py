@@ -1,6 +1,6 @@
 """Inverse NFT for the vanishing-BC NSE.
 
-TPU rebuild of fnft_nsev_inverse.c:121-1033. Pipeline:
+Rebuild of fnft_nsev_inverse.c:121-1033. Pipeline:
 
   1. Build a transfer-matrix polynomial from the continuous spectrum:
      * REFLECTION_COEFFICIENT (default): B(z) from an M-point FFT of the

@@ -1,6 +1,6 @@
 // Native host-side runtime components for fnft-tpu.
 //
-// The TPU compute path is JAX/XLA; these are the host-side pieces that sit
+// The device compute path is JAX/XLA; these are the host-side pieces that sit
 // outside the device program and benefit from native code:
 //
 //   * newton_polygon_init — Bini-style initial root guesses from the upper

@@ -1,9 +1,9 @@
 """Double-float (df64) arithmetic: ~double precision from float32 pairs.
 
-TPUs have no f64 ALUs; XLA emulation is slow or unsupported. A df64 value
-represents x = hi + lo with |lo| <= ulp(hi)/2, giving ~49 bits of mantissa
-from two float32s — enough to push the fmult tree / chirp-Z roundoff from
-~1e-6 to ~1e-12 while staying on the VPU/MXU.
+For devices without float64 ALUs. A df64 value represents x = hi + lo with
+|lo| <= ulp(hi)/2, giving ~49 bits of mantissa from two float32s — enough
+to push the fmult tree / chirp-Z roundoff from ~1e-6 to ~1e-12 in float32
+arithmetic only.
 
 Algorithms: Knuth two-sum, Dekker split/two-prod (Veltkamp splitting; no
 FMA assumption), add22/mul22 (Dekker 1971, Bailey's ddfun conventions).
@@ -132,7 +132,7 @@ def _split_host_complex(zn: np.ndarray):
     """Error-free float32 hi/lo split of a host complex128 array.
 
     Pure numpy float64 arithmetic, so the split is exact even when jax
-    x64 is off (the TPU production mode), where a device-side split would
+    x64 is off (the float32 mode), where a device-side split would
     first truncate to complex64 and zero out every lo plane."""
     re, im = np.real(zn), np.imag(zn)
     re_hi = re.astype(np.float32)
@@ -155,7 +155,7 @@ def cdf_from_c128(z):
 def cdf_to_c128(z):
     re, im = z
     if isinstance(re[0], jax.Array) and not isinstance(re[0], jax.core.Tracer):
-        # join on the host: exact even when jax x64 is off (TPU mode)
+        # join on the host: exact even when jax x64 is off
         def join(x):
             return (np.asarray(x[0], dtype=np.float64)
                     + np.asarray(x[1], dtype=np.float64))
@@ -360,8 +360,7 @@ def _fft_four_step(x, n: int, sign: int):
                              * w^{j2 k1} ] W_n2^{j2 k2}
 
     Everything is reshapes/transposes plus unrolled sub-FFTs over a
-    batched axis — no index-computed gathers, so it vectorizes on the
-    VPU and lowers cleanly to the MXU-era TPU memory system.
+    batched axis — no index-computed gathers, so it vectorizes.
     """
     n1 = 1 << (n.bit_length() - 1) // 2
     n2 = n // n1
@@ -762,7 +761,7 @@ def _matpoly_product_df64(b, a, length: int):
 def fmult2x2_tree_df64(p, *, want=None):
     """High-precision tree product of ``[n, 2, 2, c]`` complex128 inputs.
 
-    Runs entirely in float32-pair arithmetic (TPU-executable) and returns
+    Runs entirely in float32-pair arithmetic (complex-free) and returns
     (coefficients complex128, w int32) with the same 2^w normalization
     semantics as :func:`fnft_tpu.ops.poly.fmult2x2_tree` (including the
     value-space levels and ``want`` entry selection).

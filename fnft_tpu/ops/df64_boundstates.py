@@ -3,7 +3,7 @@
 The discrete-spectrum half of the flagship nsev driver — Newton refinement
 on a(lam) and the phi/psi sweeps for (a, a', b) at the bound states
 (reference fnft__nse_scatter_bound_states.c:29-668, fnft_nsev.c:595-741,
-895-970) — lowered to a complex-free TPU backend at reference (c128)
+895-970) — lowered to a complex-free float32 backend at reference (c128)
 tolerance:
 
 * every complex value is a cdf pytree (four float32 hi/lo planes,
@@ -529,7 +529,7 @@ def ab_stage_cdf(q_planes, lam_planes, h: float, chunk_len: int):
 # ops/df64_pipeline.py documents), so on the CPU backend the chunk math
 # runs EAGERLY and the [K, 2, 2] chunk products are composed on the host
 # in float64 (where exp(+-Im lam T) needs no rescale side channel). The
-# fused lax.scan stages below are TPU-only programs.
+# fused lax.scan stages below run on accelerator backends only.
 
 def _chunk_product_eager(q_chunk_cdf, r_chunk_cdf, lam, lam2, h: float,
                          derivative: bool):

@@ -4,8 +4,8 @@ df64 counterpart of ops.finvscatter (reference
 fnft__nse_finvscatter.c:29-366): the divide-and-conquer layer peel runs
 entirely on cdf coefficient pytrees — FFT polynomial products via
 fft_df64, base-case one-step inverses with a division-free df64 rsqrt —
-so the TPU recovers time-domain samples at reference (double) accuracy
-from pure float32 ops.
+so a float32-only device recovers time-domain samples at reference
+(double) accuracy from pure float32 ops.
 
 The only transcendental of the 2SPLIT2A base case, q = atan|Q| e^{i arg Q},
 affects just the OUTPUT map (never the recursion state), so it is applied
@@ -335,7 +335,7 @@ def nsev_inverse_b_of_xi_df64(contspec, xi_span, d: int, t_span, *,
     the data-dependent FFT runs in df64 on device, A(z) comes from
     :func:`fnft_tpu.ops.df64.poly_specfact_df64`, and the heavy layer
     peel runs in df64. Host glue is pure numpy float64 (no jax x64
-    dependency), so the path works with x64 off (the TPU mode).
+    dependency), so the path works with x64 off.
     """
     from fnft_tpu.ops.df64 import poly_specfact_df64
 

@@ -1,6 +1,6 @@
 """Fast inverse scattering: recover q from a transfer-matrix polynomial.
 
-TPU rebuild of fnft__nse_finvscatter.c:29-366. The divide-and-conquer layer
+Rebuild of fnft__nse_finvscatter.c:29-366. The divide-and-conquer layer
 peeling works on ascending coefficients:
 
   T(z) covers samples [0, D). Its low-order half (coefficients z^0..z^{d/2})

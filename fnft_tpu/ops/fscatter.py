@@ -1,12 +1,12 @@
 """Fast AKNS scattering: per-sample polynomial transfer matrices + FFT tree.
 
-TPU rebuild of fnft__akns_fscatter.c. Instead of hard-coding the polynomial
+Rebuild of fnft__akns_fscatter.c. Instead of hard-coding the polynomial
 coefficients of every splitting scheme (925 lines of formulas in the C
 reference), the per-sample 2x2 polynomial matrix is *generated* by folding
 the scheme's splitting specification (models.discretization.splitting_spec):
 constant-matrix factors ``E(a)`` contract on the matrix axes, monomial
 factors ``Z(a) = diag(1, z^a)`` shift coefficients. Everything is batched
-over the D samples (and any leading batch axes) — pure VPU/MXU work with no
+over the D samples (and any leading batch axes) — pure array work with no
 per-sample control flow.
 
 The resulting stack feeds :func:`fnft_tpu.ops.poly.fmult2x2_tree`, giving
@@ -136,7 +136,7 @@ def transfer_matrix_coeffs(q, r, eps_t: float, disc: Discretization,
     return _coeffs_symbolic(q, r, eps_t, disc)
 
 
-_VALUE_COEFFS: bool | None = None  # None = auto (TPU on, CPU off)
+_VALUE_COEFFS: bool | None = None  # None = auto (accelerators on, CPU off)
 
 
 def set_value_coeffs(enabled: bool | None) -> None:

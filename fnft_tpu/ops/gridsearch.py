@@ -1,6 +1,6 @@
 """Unit-circle root search on a chirp-Z grid.
 
-TPU rebuild of fnft__poly_roots_fftgridsearch.c. Both variants evaluate the
+Rebuild of fnft__poly_roots_fftgridsearch.c. Both variants evaluate the
 polynomial along arcs of (near-)unit circles with the chirp transform and
 locate roots by purely local, embarrassingly parallel tests:
 

@@ -1,6 +1,6 @@
 """Polynomial kernels: FFT-tree products, chirp-Z evaluation, Horner.
 
-TPU-native rebuild of the reference's L2 layer
+Rebuild of the reference's L2 layer
 (src/private/fnft__poly_fmult.c, fnft__poly_chirpz.c, fnft__poly_eval.c).
 
 Conventions (deliberately different from the C reference, which stores
@@ -50,8 +50,8 @@ def _rescale_exponents(coeffs, axes) -> jnp.ndarray:
 _DIRECT_CONV_CUTOFF: int | None = None  # None = auto. With the explicit 2x2
                                         # products, 16 and 32 are equal within
                                         # run noise on CPU (D=2^20 tree ~7.1 s
-                                        # best either way), so the TPU value
-                                        # is used on every platform.
+                                        # best either way); 16 is used on
+                                        # every platform.
 
 
 def _conv_cutoff() -> int:
@@ -449,47 +449,6 @@ def _pad_to_power_of_2_2x2(p):
     return jnp.concatenate([p, eye], axis=-4), n_pad - n
 
 
-_FUSED_EARLY_LEVELS: int | None = None  # None = auto; set via setter below
-_FUSED_AUTO_TPU = 2  # auto levels on the TPU backend (HBM round-trip saver)
-
-
-def set_fused_early_levels(levels: int | None) -> None:
-    """Force the Pallas fused kernel for the first ``levels`` tree levels.
-
-    0 disables; ``None`` restores auto (``_FUSED_AUTO_TPU`` levels on TPU,
-    off on CPU/GPU — interpret mode is for tests only). Applies when n is
-    divisible by 2^levels * 128 after power-of-two padding and the per-step
-    degree is small (deg+1 <= 4)."""
-    global _FUSED_EARLY_LEVELS
-    if levels is not _FUSED_EARLY_LEVELS:
-        _FUSED_EARLY_LEVELS = None if levels is None else int(levels)
-        # the flag is read at trace time: drop stale compiled programs
-        jax.clear_caches()
-
-
-def _pallas_hw_validated() -> bool:
-    """Has the Pallas fused tree ever been validated on real TPU hardware?
-
-    See :func:`fnft_tpu.ops.pallas_kernels.pallas_hw_validated`."""
-    from fnft_tpu.ops.pallas_kernels import pallas_hw_validated
-
-    return pallas_hw_validated("pallas_hw_validation")
-
-
-_PALLAS_HW_OK: bool | None = None  # cached _pallas_hw_validated() result
-
-
-def _fused_levels_active() -> int:
-    global _PALLAS_HW_OK
-    if _FUSED_EARLY_LEVELS is not None:
-        return _FUSED_EARLY_LEVELS
-    if jax.default_backend() != "tpu":
-        return 0
-    if _PALLAS_HW_OK is None:
-        _PALLAS_HW_OK = _pallas_hw_validated()
-    return _FUSED_AUTO_TPU if _PALLAS_HW_OK else 0
-
-
 def fmult2x2_tree(p, *, normalize: bool = True, want=None,
                   jsym: int | None = None, rsym: bool = False):
     """Multiply a stack of 2x2 polynomial matrices via a log-depth FFT tree.
@@ -532,20 +491,8 @@ def fmult2x2_tree(p, *, normalize: bool = True, want=None,
     n_pad = p.shape[-4]
     levels = int(math.log2(n_pad)) if n_pad > 1 else 0
 
-    fuse = 0 if rsym else _fused_levels_active()
-    if (fuse > 0 and deg_in + 1 <= 4 and levels > fuse
-            and n_pad % ((1 << fuse) * 128) == 0):
-        from fnft_tpu.ops.pallas_kernels import fused_tree_levels
-
-        interpret = jax.default_backend() == "cpu"
-        p, w = fused_tree_levels(p, fuse, normalize=normalize,
-                                 interpret=interpret)
-        levels -= fuse
-        if not normalize:
-            w = None
-    else:
-        w = jnp.zeros(p.shape[:-4] + (n_pad,), dtype=jnp.int32) \
-            if normalize else None
+    w = jnp.zeros(p.shape[:-4] + (n_pad,), dtype=jnp.int32) \
+        if normalize else None
 
     def _do_norm(lv):
         # rescale every other level (and always the last): two levels of
@@ -556,7 +503,8 @@ def fmult2x2_tree(p, *, normalize: bool = True, want=None,
     lv = 0
     # tiny degrees: direct convolution beats any FFT
     while lv < levels and p.shape[-1] <= _conv_cutoff():
-        p, w = _tree_level_2x2(p, w, _do_norm(lv))
+        with jax.named_scope(f"fmult_level_{lv}"):
+            p, w = _tree_level_2x2(p, w, _do_norm(lv))
         lv += 1
     if _value_tree_enabled() and levels - lv >= 2:
         if rsym and (p.shape[-1] - 1) % 2 == 0:

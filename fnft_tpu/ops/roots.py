@@ -1,23 +1,23 @@
-"""Batched polynomial rootfinding — the TPU replacement for eiscor.
+"""Batched polynomial rootfinding — the accelerator replacement for eiscor.
 
 The reference locates all roots of (monodromy) polynomials with a Fortran
 unitary-plus-rank-one companion QR (src/3rd_party/eiscor, entry
 z_poly_roots_modified.f90:39-122, shim fnft__poly_roots_fasteigen.c:25-48).
-A sequential QR iteration maps poorly to TPUs; instead we use the
+A sequential QR iteration maps poorly to accelerators; instead we use the
 Ehrlich–Aberth simultaneous all-root iteration:
 
     z_i <- z_i - w_i / (1 - w_i * sum_{j != i} 1/(z_i - z_j)),  w_i = p/p'
 
 which is embarrassingly parallel across roots (O(deg^2) work per sweep on
-the VPU/MXU) and converges cubically for simple roots. Initial guesses come
+the device) and converges cubically for simple roots. Initial guesses come
 from the Newton polygon (upper convex hull of (k, log|c_k|)) following
 Bini, "Numerical computation of polynomial zeros by means of Aberth's
 method", Numer. Algorithms 13 (1996) — the standard robust initialization.
 
 The polynomial evaluation inside the iteration is a *block Horner*: the
 coefficient array is reshaped into [num_chunks, L] and contracted against a
-Vandermonde block [L, K] on the MXU, so the sequential depth is deg/L
-instead of deg.
+Vandermonde block [L, K] as one matrix product, so the sequential depth is
+deg/L instead of deg.
 """
 
 from __future__ import annotations
@@ -32,37 +32,8 @@ import numpy as np
 from fnft_tpu.config import complex_dtype_of, eps_of
 
 _CHUNK = 64
-
-_PALLAS_REPULSION: bool | None = None  # None = auto; set via setter below
-_REPULSION_HW_OK: bool | None = None   # cached pallas_hw_validated() result
-
-
-def set_pallas_repulsion(on: bool | None) -> None:
-    """Force the Pallas repulsion kernel on/off (``None`` restores auto).
-
-    Auto enables the kernel on the TPU backend once the watcher has
-    recorded a ``pallas_repulsion_hw_validation`` agreement to
-    TPU_MEASUREMENTS.jsonl (same containment as the fused tree levels,
-    ops/poly.set_fused_early_levels)."""
-    global _PALLAS_REPULSION
-    if on is not _PALLAS_REPULSION:
-        _PALLAS_REPULSION = on
-        # read at trace time: drop stale compiled programs
-        jax.clear_caches()
-
-
-def _pallas_repulsion_active() -> bool:
-    global _REPULSION_HW_OK
-    if _PALLAS_REPULSION is not None:
-        return _PALLAS_REPULSION
-    if jax.default_backend() != "tpu":
-        return False
-    if _REPULSION_HW_OK is None:
-        from fnft_tpu.ops.pallas_kernels import pallas_hw_validated
-
-        _REPULSION_HW_OK = pallas_hw_validated(
-            "pallas_repulsion_hw_validation")
-    return _REPULSION_HW_OK
+# float32/complex64 products must not drop to TF32 on GPUs
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _repulsion_chunked(z_all, z_t, t_idx, lowprec: bool = True):
@@ -74,21 +45,11 @@ def _repulsion_chunked(z_all, z_t, t_idx, lowprec: bool = True):
     term only steers the iteration *path* — the fixed point (p(z)=0, where
     the Newton ratio w vanishes) is independent of s — so f32 precision
     here is accuracy-neutral while halving the dominant O(deg^2) sweep
-    cost, and it is what the TPU's native f32 VPU/MXU lanes want.
-    Differences are formed in the full input precision first so tight
+    cost. Differences are formed in the full input precision first so tight
     root clusters do not cancel in f32.
     """
     deg = z_all.shape[0]
     m = z_t.shape[0]
-    if lowprec and _pallas_repulsion_active():
-        # one VMEM-resident pass instead of per-chunk HBM round-trips;
-        # inputs are complex64 on TPU so forming differences in f32 planes
-        # matches the XLA path's precision exactly
-        from fnft_tpu.ops.pallas_kernels import repulsion_sum
-
-        s = repulsion_sum(z_all, z_t, t_idx.astype(jnp.int32),
-                          interpret=jax.default_backend() == "cpu")
-        return s.astype(z_all.dtype)
     chunk = max(512, min(1 << 16, (1 << 26) // max(m, 1)))
     nch = -(-deg // chunk)
     zp = jnp.pad(z_all, (0, nch * chunk - deg))
@@ -129,8 +90,8 @@ def _block_eval_ratio(coeffs, z):
         # Vandermonde block x^j for j < CHUNK: [CHUNK, K]
         xp = jnp.cumprod(jnp.concatenate([jnp.ones_like(x)[None],
                                           jnp.tile(x[None], (_CHUNK - 1, 1))], 0), axis=0)
-        inner_p = cs_p @ xp   # [nch, K]
-        inner_s = ks_p @ xp
+        inner_p = jnp.matmul(cs_p, xp, precision=_HIGHEST)   # [nch, K]
+        inner_s = jnp.matmul(ks_p, xp, precision=_HIGHEST)
         x_l = xp[-1] * x      # x^CHUNK
 
         def step(carry, inners):
@@ -581,8 +542,8 @@ def root_residuals(coeffs, z):
         axp = jnp.cumprod(jnp.concatenate(
             [jnp.ones_like(ax)[None], jnp.tile(ax[None], (_CHUNK - 1, 1))], 0),
             axis=0)
-        inner_p = cs_p @ xp
-        inner_a = ab_p @ axp
+        inner_p = jnp.matmul(cs_p, xp, precision=_HIGHEST)
+        inner_a = jnp.matmul(ab_p, axp, precision=_HIGHEST)
         x_l = xp[-1] * x
         ax_l = axp[-1] * ax
 

@@ -1,10 +1,10 @@
 """Slow (ODE-style) AKNS scattering as lax.scan over 2x2 matrix products.
 
-TPU rebuild of fnft__akns_scatter_matrix.c (monodromy with optional
+Rebuild of fnft__akns_scatter_matrix.c (monodromy with optional
 lambda-derivative) and fnft__nse_scatter_bound_states.c (phi/psi sweeps for
 a, a', b at bound states). The D-axis recurrence is inherently sequential;
 each step is vectorized over the whole spectral grid (K lambdas), so the
-scan body is pure VPU work of width K.
+scan body is elementwise work of width K.
 
 Derivatives are tracked with the pair recurrence (T, T') -> (U T, U' T + U T')
 instead of the reference's augmented 4x4 blocks — same math, half the FLOPs.
@@ -192,7 +192,7 @@ def _family_inputs(q, r, eps_t, disc):
 def _use_log_depth() -> bool:
     """Tree/associative products on accelerators; sequential scans on CPU.
 
-    Same math either way — on TPU a D-step sequential recurrence costs
+    Same math either way — on an accelerator a D-step sequential recurrence costs
     ~O(D) loop iterations of tiny work (latency-bound), while log-depth
     batched matmuls use the hardware; on the (single-core) CPU the scan
     avoids materializing every step matrix.
@@ -222,7 +222,7 @@ def _pair_combine(a, b):
 
 def _tree_product(u, du):
     """Log-depth product U[S-1] ... U[0] (+ derivative), padding with
-    identities. On TPU this turns the O(S) sequential recurrence into
+    identities. On an accelerator this turns the O(S) sequential recurrence into
     log2(S) batched matmul levels."""
     s = u.shape[0]
     cdt = u.dtype
@@ -307,7 +307,7 @@ def _bound_states_chunked(xs, step_fn, lam, phi0, dphi0, psi_end, te, scl,
     """Two-pass phi/psi sweeps with O(S/L + L) live memory.
 
     The reference stores phi at all D+1 grid points in host RAM
-    (fnft__nse_scatter_bound_states.c:29-668); at D=2^20 a TPU cannot hold
+    (fnft__nse_scatter_bound_states.c:29-668); at D=2^20 a device should not hold
     the [S, K, 2, 2] prefix trajectory, so pass 1 reduces each length-L
     chunk to a single transfer matrix (tree product) and prefix-scans the
     C = S/L chunk products, and pass 2 re-derives the per-sample phi/psi
@@ -426,7 +426,7 @@ def scatter_bound_states(q, r, lam, eps_t: float, t0: float, t1: float,
     te = t1 + eps_t * BOUNDARY_COEFF
 
     # ---- forward phi sweep (with derivative) --------------------------------
-    # prefix products P_n = U_n ... U_1 via associative scan: log-depth on TPU
+    # prefix products P_n = U_n ... U_1 via associative scan: log-depth on accelerators
     phi0 = jnp.stack([jnp.exp(-1j * lam * tb), jnp.zeros_like(lam)], axis=-1)
     dphi0 = jnp.stack([phi0[:, 0] * (-1j * tb), jnp.zeros_like(lam)], axis=-1)
 

@@ -1,6 +1,6 @@
-"""Full-spectrum (contspec + discrete spectrum) nsev for complex-free TPUs.
+"""Full-spectrum (contspec + discrete spectrum) nsev for complex-free devices.
 
-Composes the round-4/5 real-pair lowerings into the complete flagship
+Composes the real-pair and df64 lowerings into the complete flagship
 driver of the reference (fnft_nsev.c:133-453) executable on a backend
 with no complex types and no FFT HLO:
 
@@ -14,7 +14,7 @@ with no complex types and no FFT HLO:
                   (ops/df64_boundstates.ab_at_states_df64)
 
 The subsample rule Dsub = sqrt(D log2^2 D) (fnft_nsev.c:283-286) is
-rounded to a power of two so the rc tree and the MXU FFTs stay on exact
+rounded to a power of two so the rc tree and the matmul FFTs stay on exact
 power-of-two grids.
 """
 
@@ -117,23 +117,7 @@ def locate_boundstates_tpu(q128, t_span, *, dsub_hint: int = 0,
     fn = boundstate_init_pipeline(dsub, eps_sub, num_iters=num_iters)
     args = (jnp.asarray(qs.real.astype(np.float32)),
             jnp.asarray(qs.imag.astype(np.float32)))
-    try:
-        zr, zi = fn(*args)
-    except Exception:
-        # the auto-enabled Pallas repulsion has only been hardware-
-        # validated as a standalone call; if the kernel fails inside the
-        # Aberth while_loop on this backend, fall back to the XLA
-        # repulsion once and retry (set_pallas_repulsion clears caches)
-        from fnft_tpu.ops import roots as roots_mod
-
-        if roots_mod._PALLAS_REPULSION is None \
-                and jax.default_backend() == "tpu":
-            roots_mod.set_pallas_repulsion(False)
-            fn = boundstate_init_pipeline(dsub, eps_sub,
-                                          num_iters=num_iters)
-            zr, zi = fn(*args)
-        else:
-            raise
+    zr, zi = fn(*args)
     z = np.asarray(zr, np.float64) + 1j * np.asarray(zi, np.float64)
     # z = exp(2 i lam eps_sub / deg1), deg1 = 2 for SPLIT4B
     with np.errstate(divide="ignore", invalid="ignore"):

@@ -1,6 +1,6 @@
 """Time-axis (D) sharding of the fast NFT over a device mesh.
 
-This is the TPU analogue of sequence parallelism for the reference's
+This is the analogue of sequence parallelism for the reference's
 O(D log^2 D) pipeline (SURVEY.md section 2.8/5.7; the sequential tree it
 distributes is fnft__poly_fmult.c:381-546):
 
@@ -14,7 +14,7 @@ distributes is fnft__poly_fmult.c:381-546):
   expensive per level), each device chirp-Z-evaluates its own chunk
   polynomial at the M spectral points and the ordered matrix product
   ``H(xi) = P_{S-1}(xi) @ ... @ P_0(xi)`` is composed **in value space**
-  by a log2(S)-step butterfly of ``ppermute`` exchanges over ICI, with a
+  by a log2(S)-step butterfly of ``ppermute`` exchanges between devices, with a
   power-of-two rescale per step (the reference's 2^W normalization,
   fnft__poly_fmult.c:123-150, carried as an integer exponent);
 * the final reflection coefficient / a / b arrays come out sharded over
@@ -22,7 +22,7 @@ distributes is fnft__poly_fmult.c:381-546):
 
 Per-device FLOPs therefore scale ~1/S for the tree and stay O((D/S + M)
 log) for the evaluation; communication is log2(S) exchanges of [M, 2, 2]
-values — pure ICI, no host round-trips.
+values — device to device, no host round-trips.
 
 Restrictions: fast (polynomial) schemes, D and M divisible by S. The
 upsampled 4SPLIT4A/B schemes are supported via one all_gather of q before
@@ -130,7 +130,7 @@ def make_dshard_contspec(d: int, t_span, m: int, xi_span, mesh: Mesh, *,
         else:
             # 4SPLIT4A/B (CF4_2 stages): the stage construction needs a
             # full-length FFT resample (nse.preprocess_signal), a global op.
-            # Gather q once (D values over ICI — tiny next to the local
+            # Gather q once (D values between devices — tiny next to the local
             # O((D/S) log^2) tree), build the stages replicated, and keep
             # this device's contiguous ups*(D/S) stage samples (stages are
             # interleaved per original sample, so chunk boundaries align).

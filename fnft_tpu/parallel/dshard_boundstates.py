@@ -3,7 +3,7 @@
 The reference's expensive bound-state path (src/fnft_nsev.c:595-741) is a
 subsampled eigenvalue problem followed by ``niter`` full-D Newton sweeps,
 each a sequential phi-recursion over all D samples plus a phi/psi pair for
-the norming constants (fnft__nse_scatter_bound_states.c:29-668). The TPU
+the norming constants (fnft__nse_scatter_bound_states.c:29-668). The sharded
 version distributes exactly the part that scales with D:
 
 * the D (effective) samples are split into S contiguous time chunks, one
@@ -12,7 +12,7 @@ version distributes exactly the part that scales with D:
   lambda-derivative) via log-depth local products — the O(D) work is
   perfectly work-partitioned;
 * the S chunk matrices ([S, K, 2, 2] for K bound states — a few KiB) are
-  combined with one ``all_gather`` over ICI; every device then composes
+  combined with one ``all_gather`` across the devices; every device then composes
   the prefix/suffix products it needs locally. A ppermute butterfly would
   also work, but for K ~ 10 bound states the gathered tensor is so small
   that a single collective is strictly cheaper than log2(S) exchanges;

@@ -12,7 +12,7 @@ This module supplies:
 * a **distributed four-step FFT** pair over a mesh axis, the standard
   transpose algorithm (Bailey): view x[n], n = r + R.c as A[r, c] with
   L = R.C; then X[k2 + C.k1] = FFT_r( w_L^{r.k2} . FFT_c(A) ), so the
-  schedule is local FFT over c -> twiddle -> all_to_all transpose (ICI)
+  schedule is local FFT over c -> twiddle -> all_to_all transpose
   -> local FFT over r.  Outputs stay in the permuted (k2, k1) layout,
   which pointwise products and the inverse transform both preserve —
   the layout permutation cancels inside a convolution;
@@ -26,7 +26,7 @@ This module supplies:
 Coefficient arrays stay replicated between stages ([2, 2, deg+1] is
 small even at D = 2^20); only the O(L log L) transform work inside a
 product is partitioned. Communication per product: two all_to_all
-transposes + one all_gather, all ICI-resident on a TPU mesh.
+transposes + one all_gather, all device to device.
 """
 
 from __future__ import annotations

@@ -7,14 +7,14 @@ complete monodromy matrix (and its lambda-derivative) — a sequential
 O(D) recursion per candidate in C. At D = 2^20 this refinement dominates
 the nsep runtime; it is exactly the part multi-chip should carry.
 
-TPU design (mirrors parallel/dshard_boundstates.py):
+Design (mirrors parallel/dshard_boundstates.py):
 
 * the D (effective) samples are split into S contiguous time chunks, one
   per device on the ``seq`` mesh axis;
 * each device reduces its chunk to one (T, T') transfer matrix per
   candidate via log-depth local products — O(D/S) per device;
 * the S chunk matrices ([S, K, 2, 2] — a few KiB for K candidates) meet
-  in a single ``all_gather`` over ICI and every device composes the
+  in a single ``all_gather`` across the devices and every device composes the
   total monodromy locally;
 * the entire Newton sweep (the reference's m in {1,2} line-search for
   the main spectrum, plain Newton on T12 for the aux spectrum) runs as

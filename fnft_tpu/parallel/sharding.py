@@ -8,7 +8,7 @@ first-class capability of this rebuild instead:
 * **grid parallelism** — the M-point chirp-Z evaluation is embarrassingly
   parallel and shards over the ``"grid"`` axis,
 * the fmult tree's early levels are local to the batch shard; XLA inserts
-  ICI collectives only where sharded axes meet.
+  cross-device collectives only where sharded axes meet.
 """
 
 from __future__ import annotations

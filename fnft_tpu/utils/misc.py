@@ -1,4 +1,4 @@
-"""Numeric helpers (TPU rebuild of the reference's fnft__misc.c).
+"""Numeric helpers (Rebuild of the reference's fnft__misc.c).
 
 Key departure from the C original: filtering/merging cannot compact arrays
 under jit (static shapes), so the masked variants here return ``(values,
@@ -86,7 +86,7 @@ def _next_fast_size(n: int) -> int:
 def next_fft_length(n: int) -> int:
     """Next efficient FFT length for the active backend.
 
-    TPU XLA wants powers of two; the CPU backend (pocketfft) handles
+    Accelerator backends pad to powers of two; the CPU backend (pocketfft) handles
     mixed-radix 2^a 3^b 5^c sizes efficiently — matching the reference's
     kiss_fft_next_fast_size and cutting the fmult tree's FFT work by up
     to ~2x versus always rounding to a power of two.

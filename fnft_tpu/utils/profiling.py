@@ -1,7 +1,7 @@
 """Tracing/profiling hooks (SURVEY.md section 5.1).
 
 The reference has only #ifdef DEBUG printfs; here the native JAX tooling is
-exposed with thin helpers so every driver stage shows up named in TPU
+exposed with thin helpers so every driver stage shows up named in device
 profiles (Perfetto/XProf).
 """
 

@@ -1,4 +1,4 @@
-"""Double-float (float32-pair) arithmetic: the TPU high-precision path."""
+"""Double-float (float32-pair) arithmetic: the float32-only high-precision path."""
 
 import jax
 import numpy as np
@@ -199,7 +199,7 @@ def test_df64_value_tree_matches_classic_and_brute_force():
 
 def test_df64_contspec_at_scale_d_2pow16():
     """df64 contspec at D=2^16 with the full M=D grid vs the complex128
-    driver — the at-scale evidence for 'reference tolerance on TPU'
+    driver — the at-scale evidence for 'reference tolerance in float32 pairs'
     (gated: minutes on 1 CPU core; the roofline doc extrapolates 2^20).
 
     Bound model: the dominant error is the per-sample accumulation of
@@ -235,7 +235,7 @@ def test_df64_contspec_at_scale_d_2pow16():
 
 def test_df64_fft_large_n_x64_off_subprocess():
     """Regression: the loop-FFT twiddle index grp*(n//2)//m overflowed
-    int32 for n >= 2^17 when jax x64 is off (the TPU mode), silently
+    int32 for n >= 2^17 when jax x64 is off (the float32 mode), silently
     corrupting every large df64 FFT. Verified in a subprocess with x64
     disabled (the suite itself runs with x64 on, which hid the bug)."""
     import subprocess
@@ -261,7 +261,7 @@ print('OK', err)
 
 def test_df64_contspec_x64_off_subprocess():
     """Regression: nsev_contspec_df64 used jnp.asarray on its complex128
-    input, which truncates to complex64 when jax x64 is off (the TPU
+    input, which truncates to complex64 when jax x64 is off (the float32
     mode) and zeroes every lo plane — capping accuracy at ~1e-7. With the
     host-side split the x64-off pipeline must match the x64 complex128
     driver to ~1e-12."""

@@ -1,9 +1,7 @@
 """df64 table-registry integration: the twiddle/chirp-Z/phase tables must
 produce identical results whether inlined as literals (plain jit / eager,
-the CPU mode) or passed as jit parameters (tables.jit_tabled, the TPU
-mode). The full-program compile at production D is exercised on TPU by
-tools/tpu_watch.py's df64 stages; here the mechanism is validated at
-small sizes (XLA:CPU compiles of the deep df64 chains are minutes-slow,
+the CPU mode) or passed as jit parameters (tables.jit_tabled, the
+accelerator mode). Here the mechanism is validated at small sizes (XLA:CPU compiles of the deep df64 chains are minutes-slow,
 see ops/df64_pipeline.py's staging note)."""
 
 import numpy as np
@@ -75,9 +73,8 @@ def test_rho_pipeline_df64_params_path():
 
     Runs the tabled body EAGERLY with the registry in params mode: jitting
     the whole df64 program trips XLA:CPU's minutes-long slow-compile alarm
-    even at D=64 (the staged CPU driver exists for exactly this reason),
-    while on TPU the watcher compiles and times the jitted program. The
-    eager params run still proves the collection pass finds every table
+    even at D=64 (the staged CPU driver exists for exactly this reason).
+    The eager params run still proves the collection pass finds every table
     and the param hand-off returns identical values to the inline path.
     """
     from fnft_tpu.models import nse

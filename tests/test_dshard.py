@@ -2,7 +2,7 @@
 
 The reference's poly_fmult tree is sequential C (fnft__poly_fmult.c:381-546);
 here its first log2(D/S) levels run shard-local and the last log2(S) levels
-are replaced by a value-space butterfly over ICI collectives. These tests
+are replaced by a value-space butterfly over cross-device collectives. These tests
 run on the 8-virtual-device CPU mesh from conftest.py.
 """
 

@@ -175,7 +175,7 @@ def test_nsep_defocusing_main_only_no_crash():
 
 
 def test_nsep_complex64_aux_not_dropped():
-    """complex64 (TPU-production) pipeline: the aux backward-error
+    """complex64 pipeline: the aux backward-error
     certificate must use the pipeline dtype's eps — with complex128 eps
     every c64 aux root was silently dropped (round-3 review finding)."""
     d = 256

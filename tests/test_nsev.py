@@ -168,7 +168,7 @@ def test_nsev_BO_richardson():
 
 def test_nsev_complex64_accuracy():
     """The complex64 fast path stays within ~1e-4 of complex128 at D=4096
-    (the TPU production mode's accuracy budget)."""
+    (the complex64 contract's accuracy budget)."""
     data = nsev_testcase(TC.SECH_FOCUSING, 4096)
     res32 = ft.nsev(jnp.asarray(data.q.astype(np.complex64)), data.t_span,
                     m=data.m, xi_span=data.xi_span, kappa=+1,

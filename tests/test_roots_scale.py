@@ -11,7 +11,7 @@ deg ~4e4. These tests stress the Ehrlich-Aberth replacement on
   residual acceptance per root.
 
 deg 2^16+ and the end-to-end D=2^20 run cost tens of CPU-minutes and are
-gated behind FNFT_SLOW_TESTS=1 (the TPU runs them in seconds).
+gated behind FNFT_SLOW_TESTS=1.
 """
 
 import math

@@ -59,8 +59,8 @@ def test_chunked_matches_dense(monkeypatch, disc, skip_b):
 def test_full_spectrum_d_2pow16():
     """Full discrete spectrum at D=2^16: the phi/psi sweeps cross the
     2^15-step threshold, so this exercises the chunked two-pass path at
-    real scale inside the driver (VERDICT item 8's acceptance test).
-    Gated: ~10 CPU-minutes; trivial on TPU."""
+    real scale inside the driver.
+    Gated: ~10 CPU-minutes."""
     import os
 
     if not os.environ.get("FNFT_SLOW_TESTS"):

@@ -1,6 +1,6 @@
 """Complex-free full-spectrum pipeline: rc Aberth + df64 sweeps.
 
-Validates the TPU lowerings of the discrete-spectrum path against the
+Validates the complex-free lowerings of the discrete-spectrum path against the
 complex (c128) implementations and the analytic Satsuma-Yajima spectrum,
 on the CPU backend (the math is backend-agnostic; tests/conftest.py pins
 CPU). Reference bounds: test/fnft_nsev/fnft_nsev_test_sech_focusing_*
